@@ -6,14 +6,14 @@
 //
 //  * lane packing      — codes interleaved little-endian-in-bits along the
 //    last dim, factor = 32/bits codes per uint32 word;
-//  * grouped-planar    — the TPU-kernel layout: along axis -2, groups of
+//  * grouped-planar    — the packed-kernel layout: along axis -2, groups of
 //    32 words cover group_k = 32*factor k-rows; word[g*32+r][n] holds code
 //    codes[g*gk + i*32 + r][n] in bit field [bits*i, bits*(i+1)).
 //
 // Scope: deployment tooling (scripts/export_packed.py) packs trained
 // checkpoints into serving artifacts on hosts with no accelerator; this
 // native path keeps multi-GB exports fast. The reference repo has no native
-// code at all (SURVEY.md §2 header) — this is new TPU-framework scope, not a
+// code at all (SURVEY.md §2 header) — this is new framework scope, not a
 // port. Threaded with std::thread over rows; no dependencies beyond libc++.
 //
 // ABI: plain C, int32 codes, uint32 words, row-major contiguous buffers.
@@ -106,7 +106,7 @@ int qtpu_unpack_lanes(const uint32_t* packed, int32_t* codes, int64_t rows,
   return 0;
 }
 
-// ---- grouped-planar packing (axis -2, the TPU-kernel layout) --------------
+// ---- grouped-planar packing (axis -2, the packed-kernel layout) -----------
 //
 // codes:  [k, n] int32 (leading batch dims flattened into per-call loops by
 //         the Python wrapper; 2-D is the only case the kernels use).

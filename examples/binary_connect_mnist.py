@@ -5,7 +5,7 @@ The reference ships this workflow as a notebook (SURVEY.md §2-L2: construct
 model -> CE loss -> backward -> optimizer.step() -> per-layer clamp()); here
 the whole loop is one jitted XLA program and the clamp is an optax transform.
 
-Runs on CPU or TPU. With real MNIST under $QTPU_DATA_DIR it trains on that;
+Runs on the CPU or a GPU. With real MNIST under $QTPU_DATA_DIR it trains on that;
 otherwise a deterministic synthetic stand-in. Try also ``--scheme
 binary_stoch|ternary|dorefa|log|lin`` to swap the quantizer.
 """

@@ -5,9 +5,9 @@ Trains a full-XNOR (W1A1) convnet, then exports the FUSED chain
 (``infer/fused_chain.py``): eval BatchNorm + the next layer's activation
 binarization collapse into a per-channel threshold on each conv's raw int32
 accumulator, so activations cross stage boundaries as ±1 int8 — 1 byte,
-never materialized in f32 — and every hidden conv runs int8×int8→int32 on
-the MXU. Measured on v5e: 1.92× the fp32 twin's images/s at 32× smaller
-weights (PERF.md), vs 0.91× for the unfused packed path this replaces.
+never materialized in f32 — and every hidden conv runs int8×int8 with exact
+integer sums, at 32× smaller weights than the fp32 twin (PERF.md has the
+measured rates).
 
 The same fold works for k-bit DoReFa (affine + round + clip on the
 accumulator): see ``infer.export_fused_resnet20`` for the residual-network

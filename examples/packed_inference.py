@@ -3,7 +3,7 @@
 
 The part the reference never had (SURVEY.md §2 "Native-kernel components —
 reference has NONE"): after training with fake-quant STE, weights are frozen,
-bit-packed, and eval runs through the Pallas packed GEMM kernels. The export
+bit-packed, and eval runs through the packed low-bit GEMMs. The export
 file holds packed ints + scales only — 8x smaller than the f32 checkpoint at
 4 bits, 32x at 1 bit.
 """

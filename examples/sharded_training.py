@@ -3,8 +3,8 @@
 
 What the reference (single-device torch) could never do: the same train step
 jitted over a device mesh — params sharded over the "model" axis, batch over
-"data", XLA inserting all-gathers/psums over ICI. Runs anywhere: on one host
-this uses 8 virtual CPU devices; on a pod slice, call
+"data", XLA inserting all-gathers/psums between devices. Runs anywhere: on one host
+this uses 8 virtual CPU devices; on a multi-host cluster, call
 ``parallel.multihost_initialize()`` first and the identical code scales.
 
     python examples/sharded_training.py        # 8 virtual CPU devices
@@ -24,7 +24,7 @@ if "host_platform_device_count" not in flags:
 import jax
 
 # Demo runs on virtual CPU devices; set QTPU_EXAMPLE_REAL_DEVICES=1 on a
-# real pod slice to use the actual chips instead.
+# machine with several GPUs to use the actual cards instead.
 if not os.environ.get("QTPU_EXAMPLE_REAL_DEVICES"):
     jax.config.update("jax_platforms", "cpu")
 

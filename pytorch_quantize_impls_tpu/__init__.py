@@ -1,6 +1,6 @@
-"""TPU-native quantized training & inference engine.
+"""Quantized training & inference engine in JAX.
 
-A brand-new TPU-first (JAX / XLA / Pallas / jit+sharding) framework with the
+A brand-new (JAX / XLA / Pallas / jit+sharding) framework with the
 capabilities of the reference repo ``Enderdead/Pytorch_Quantize_impls``
 (a.k.a. *QuantTorch* — see ``SURVEY.md``): the full low-bit scheme zoo
 
@@ -13,7 +13,7 @@ capabilities of the reference repo ``Enderdead/Pytorch_Quantize_impls``
 
 implemented as straight-through-estimator ``jax.custom_vjp`` fake-quant
 primitives for training (``ops``), bit-packing utilities (``ops.pack``),
-Pallas TPU kernels executing the *true* low-bit path (``kernels``), neural-net
+packed low-bit kernels executing the *true* low-bit path (``kernels``), neural-net
 layers (``nn``), model zoo (``models``), sharded training (``train`` +
 ``parallel``), and a continuous-batching inference engine (``serve``).
 

@@ -4,9 +4,8 @@ VERDICT r3 #3 / BASELINE.json:5 ("every dequant/popcount matmul kernel at
 speed-of-light"): the generic packed path (``infer/packed.py``) runs each
 conv's int32 accumulator through f32 (+α), eval BatchNorm, and pooling in
 f32, then re-binarizes at the next conv's input — three full-activation
-f32 HBM round-trips per stage. At the CIFAR widths that boundary traffic
-capped the whole XNOR ConvNet at 0.91× its bf16 twin (PERF.md r3) even
-though the conv kernel alone is 3–7× faster.
+f32 HBM round-trips per stage; at the CIFAR widths that boundary traffic,
+not the convs, is what the packed path spends its time on.
 
 This module folds the entire stage boundary into the conv epilogue.
 Eval-mode BatchNorm is a per-channel affine ``z = γ·(αy − μ)/s + β``
@@ -22,7 +21,7 @@ Max-pooling commutes with the monotone ``sign`` (``pool(sign(z)) ==
 sign(pool(z))``, including the γ<0 flip because the flip happens inside the
 per-element code), so pooling runs on the int8 codes. Activations therefore
 cross stage boundaries as ±1 int8 — 1 byte, never materialized in f32 —
-and the hidden convs run int8×int8→int32 on the MXU.
+and the hidden convs run int8×int8 with exact integer sums.
 
 Exactness: every int8-input stage is exact integer arithmetic; the only
 deviations from the fake-quant path are (a) the threshold is computed in a
@@ -43,19 +42,27 @@ BASELINE.json:5.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
-import flax.linen as fnn
 import numpy as np
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from pytorch_quantize_impls_tpu.kernels import xnor_gemm as _bg
+from pytorch_quantize_impls_tpu.kernels.conv import int8_conv
 
 
-@struct.dataclass
+def _static(default):
+    """A dataclass field that is pytree metadata, not a leaf."""
+    return dataclasses.field(default=default, metadata={"static": True})
+
+
+def _pytree_dataclass(cls):
+    return jax.tree_util.register_dataclass(dataclasses.dataclass(frozen=True)(cls))
+
+
+@_pytree_dataclass
 class FusedStage:
     """One conv/dense stage with its boundary folded into the epilogue."""
 
@@ -68,27 +75,31 @@ class FusedStage:
     scale: Optional[jax.Array] = None
     bias: Optional[jax.Array] = None
     # static
-    in_codes: bool = struct.field(pytree_node=False, default=True)
-    pool: bool = struct.field(pytree_node=False, default=False)
-    strides: Tuple[int, int] = struct.field(pytree_node=False, default=(1, 1))
-    padding: str = struct.field(pytree_node=False, default="SAME")
-    dense: bool = struct.field(pytree_node=False, default=False)
+    in_codes: bool = _static(True)
+    pool: bool = _static(False)
+    strides: Tuple[int, int] = _static((1, 1))
+    padding: str = _static("SAME")
+    dense: bool = _static(False)
 
 
-@struct.dataclass
+@_pytree_dataclass
 class FusedHead:
     w: jax.Array  # (features_in, classes) — ±1 codes or fp kernel
     alpha: Optional[jax.Array] = None  # xnor per-class scale
     bias: Optional[jax.Array] = None
 
 
-@struct.dataclass
+@_pytree_dataclass
 class FusedChain:
     stages: Tuple[FusedStage, ...]
     head: FusedHead
 
 
 _DN = ("NHWC", "HWIO", "NHWC")
+# Real-valued (stem, projection, head) products: exact f32 when the export
+# keeps them in f32 (on the GPU, default precision would round to TF32);
+# no effect on bf16 operands.
+_HI = jax.lax.Precision.HIGHEST
 
 
 def _bn_affine(params, stats, eps=1e-5):
@@ -125,7 +136,7 @@ def export_fused_chain(model, variables, *, first_dtype=jnp.bfloat16) -> FusedCh
 
     Requires ``quantized=True, binarize_inputs=True,
     use_input_scale_map=False`` (see module docstring). ``first_dtype``:
-    compute dtype for the first (real-input) conv — ``bfloat16`` on TPU,
+    compute dtype for the first (real-input) conv — ``bfloat16`` to serve,
     pass ``float32`` for bit-level parity testing on CPU.
     """
     if not (model.quantized and model.binarize_inputs):
@@ -268,7 +279,7 @@ def export_fused_lenet(model, variables, *, first_dtype=jnp.bfloat16) -> FusedCh
 # block's input codes are one fused round/clip pass over it.
 
 
-@struct.dataclass
+@_pytree_dataclass
 class FusedResBlock:
     w1: jax.Array  # int8 centered codes (2c - n_w), HWIO
     a1: jax.Array  # codes epilogue: code = clip(round(a1*y + b1), 0, n_a)
@@ -279,10 +290,10 @@ class FusedResBlock:
     wp: Optional[jax.Array] = None  # fp 1x1 proj kernel (runs on the real stream)
     ap: Optional[jax.Array] = None  # proj BN affine
     bp: Optional[jax.Array] = None
-    strides: Tuple[int, int] = struct.field(pytree_node=False, default=(1, 1))
+    strides: Tuple[int, int] = _static((1, 1))
 
 
-@struct.dataclass
+@_pytree_dataclass
 class FusedResNet:
     stem_w: jax.Array  # fp HWIO
     stem_a: jax.Array  # stem BN affine (real stream: r = relu(a*y + b))
@@ -290,14 +301,14 @@ class FusedResNet:
     blocks: Tuple[FusedResBlock, ...]
     head_w: jax.Array
     head_b: jax.Array
-    n_a: int = struct.field(pytree_node=False, default=15)
+    n_a: int = _static(15)
 
 
 def export_fused_resnet20(model, variables, *, first_dtype=jnp.bfloat16):
     """Build a :class:`FusedResNet` from a trained ``DorefaResNet20``.
 
     Requires ``quantized=True`` and ``a_bits >= 1``. ``first_dtype``: compute
-    dtype for the fp stem/proj convs (bf16 on TPU; f32 for CPU parity tests).
+    dtype for the fp stem/proj convs (bf16 to serve; f32 for parity tests).
     """
     from pytorch_quantize_impls_tpu.ops.dorefa import dorefa_weight
 
@@ -373,24 +384,20 @@ def fused_resnet_apply(net: FusedResNet, x: jax.Array) -> jax.Array:
     y = jax.lax.conv_general_dilated(
         x.astype(net.stem_w.dtype), net.stem_w, (1, 1), "SAME",
         dimension_numbers=_DN, preferred_element_type=jnp.float32,
+        precision=_HI,
     )
     r = jax.nn.relu(y * net.stem_a + net.stem_b)
     c = _quant_codes(r * n_a, net.n_a)
     for blk in net.blocks:
-        y1 = jax.lax.conv_general_dilated(
-            c, blk.w1, blk.strides, "SAME", dimension_numbers=_DN,
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.float32)
+        y1 = int8_conv(c, blk.w1, blk.strides, "SAME")
         c1 = _quant_codes(y1 * blk.a1 + blk.b1, net.n_a)
-        y2 = jax.lax.conv_general_dilated(
-            c1, blk.w2, (1, 1), "SAME", dimension_numbers=_DN,
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.float32)
+        y2 = int8_conv(c1, blk.w2, (1, 1), "SAME")
         y2r = y2 * blk.a2 + blk.b2
         if blk.wp is not None:
             pr = jax.lax.conv_general_dilated(
                 r.astype(blk.wp.dtype), blk.wp, blk.strides, "SAME",
                 dimension_numbers=_DN, preferred_element_type=jnp.float32,
+                precision=_HI,
             )
             resr = pr * blk.ap + blk.bp
         else:
@@ -398,7 +405,7 @@ def fused_resnet_apply(net: FusedResNet, x: jax.Array) -> jax.Array:
         r = jax.nn.relu(y2r + resr)
         c = _quant_codes(r * n_a, net.n_a)
     pooled = jnp.mean(r, axis=(1, 2))
-    return pooled @ net.head_w + net.head_b
+    return jnp.dot(pooled, net.head_w, precision=_HI) + net.head_b
 
 
 def fused_apply(chain: FusedChain, x: jax.Array) -> jax.Array:
@@ -415,17 +422,15 @@ def fused_apply(chain: FusedChain, x: jax.Array) -> jax.Array:
             else:
                 y = jnp.dot(
                     h.astype(st.w.dtype), st.w,
-                    preferred_element_type=jnp.float32,
+                    preferred_element_type=jnp.float32, precision=_HI,
                 )
         elif st.in_codes:
-            y = jax.lax.conv_general_dilated(
-                h, st.w, st.strides, st.padding, dimension_numbers=_DN,
-                preferred_element_type=jnp.int32,
-            ).astype(jnp.float32)
+            y = int8_conv(h, st.w, st.strides, st.padding)
         else:
             y = jax.lax.conv_general_dilated(
                 h.astype(st.w.dtype), st.w, st.strides, st.padding,
                 dimension_numbers=_DN, preferred_element_type=jnp.float32,
+                precision=_HI,
             )
         if st.thr is not None:
             h = jnp.where(y >= st.thr, st.hi, st.lo)  # int8 codes out
@@ -436,7 +441,8 @@ def fused_apply(chain: FusedChain, x: jax.Array) -> jax.Array:
     if h.ndim > 2:
         h = h.reshape(h.shape[0], -1)
     h = h.astype(jnp.float32)
-    y = jnp.dot(h, chain.head.w, preferred_element_type=jnp.float32)
+    y = jnp.dot(h, chain.head.w, preferred_element_type=jnp.float32,
+                precision=_HI)
     if chain.head.alpha is not None:
         y = y * chain.head.alpha
     if chain.head.bias is not None:

@@ -14,8 +14,8 @@ The fused step (binary scheme, W1A1 — the serving bench workload):
     int8 GEMM over the concatenated (d, 3d) weight (3x fewer dispatches).
   - Attention runs in ONE pass over the int8 KV cache
     (kernels/decode_attention.py): dequant scales fold into the score /
-    attention vectors, so the bf16 cache copy — the dominant HBM traffic
-    at batch >= 8 — never materializes.
+    attention vectors, so a dequantized cache copy — the dominant HBM
+    traffic at batch >= 8 — never materializes.
   - The FFN hidden boundary collapses to a per-channel THRESHOLD on the
     int32 accumulator (sign(y + b) == [y >= -b]), exactly the fused-chain
     trick: the (b, d_ff) hidden activation crosses as int8 codes.
@@ -33,11 +33,11 @@ exact-parity contract with the fake-quant model per SURVEY.md §3.5.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from pytorch_quantize_impls_tpu.kernels.decode_attention import decode_attention
 from pytorch_quantize_impls_tpu.kernels.int8_matmul import int8_gemm
@@ -47,7 +47,13 @@ from pytorch_quantize_impls_tpu.kernels.xnor_gemm import (
 from pytorch_quantize_impls_tpu.ops import kv_cache as kvlib
 
 
-@struct.dataclass
+def _static(default):
+    """A dataclass field that is pytree metadata, not a leaf."""
+    return dataclasses.field(default=default, metadata={"static": True})
+
+
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class FusedDecodeLayer:
     w_qkv: jax.Array  # (d, 3d) int8 ±1 — concatenated q|k|v sign codes
     w_out: jax.Array  # (d, d) int8 ±1
@@ -61,7 +67,8 @@ class FusedDecodeLayer:
     ln2_bias: jax.Array
 
 
-@struct.dataclass
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
 class FusedDecodeModel:
     embed: jax.Array  # (vocab, d) f32 — tied head
     pos: jax.Array  # (max_len, d) f32
@@ -69,10 +76,10 @@ class FusedDecodeModel:
     lnf_scale: jax.Array
     lnf_bias: jax.Array
     # static
-    n_heads: int = struct.field(pytree_node=False, default=8)
-    max_len: int = struct.field(pytree_node=False, default=1024)
-    kv_bits: int = struct.field(pytree_node=False, default=8)
-    ln_eps: float = struct.field(pytree_node=False, default=1e-6)
+    n_heads: int = _static(8)
+    max_len: int = _static(1024)
+    kv_bits: int = _static(8)
+    ln_eps: float = _static(1e-6)
 
 
 def _sign_i8(x):
@@ -89,11 +96,10 @@ def _ln(x, scale, bias, eps):
 def _gemm_i8(c, w):
     """±1 int8 codes @ weight -> f32 (exact integer accumulate).
 
-    ``w`` is either int8 ±1 codes (Pallas ``int8_gemm`` — XLA's own int8
-    dot widens through fp32 on v5e, ~10x slower; kernels/__init__) or
-    planar-packed uint32 1-bit planes (Pallas ``binary_gemm`` — 8x less
-    weight HBM traffic per step, paid with the in-VMEM unpack). Both are
-    exact."""
+    ``w`` is either int8 ±1 codes (``int8_gemm``, XLA's int8 dot) or
+    planar-packed uint32 1-bit planes (``binary_gemm``: at decode-sized M
+    on the GPU a Triton kernel that reads 8x fewer weight bytes per step).
+    Both are exact."""
     if w.dtype == jnp.uint32:
         return binary_gemm(c, w, None, out_dtype=jnp.float32)
     return int8_gemm(c, w, out_dtype=jnp.float32)
@@ -107,7 +113,7 @@ def export_fused_decode(model, variables, *, weights: str = "int8") -> FusedDeco
 
     ``weights``: ``"int8"`` keeps decoded ±1 int8 codes resident (XLA int8
     dot path); ``"packed"`` keeps planar 1-bit uint32 planes resident
-    (Pallas ``binary_gemm``, 8x less weight traffic per decode step).
+    (``binary_gemm``, 8x less weight traffic per decode step).
     """
     if weights not in ("int8", "packed"):
         raise ValueError(f"weights must be 'int8' or 'packed', got {weights!r}")
@@ -190,22 +196,27 @@ def fused_init_cache(fm: FusedDecodeModel, b: int):
     return cache
 
 
+# f32 products at full precision: on the GPU the default would round the
+# operands to TF32, and a sign-binarized stream amplifies that rounding.
+_HI = jax.lax.Precision.HIGHEST
+
+
 def _attend_cached(q, att, offset, s, fm):
     """Multi-query attention over the full cache (prefill path, plain XLA):
     scales fold into scores / attention weights — no dequant cache copy."""
     b, _, h, hd = q.shape
     cl = att["k_codes"].shape[2]
     kf = att["k_codes"].astype(jnp.float32)
-    scores = jnp.einsum("bqhd,bhkd->bhqk", q, kf)
+    scores = jnp.einsum("bqhd,bhkd->bhqk", q, kf, precision=_HI)
     scores = scores * att["k_scale"][:, :, None, :]
-    scores = scores * jax.lax.rsqrt(jnp.float32(hd))
+    scores = scores * hd**-0.5  # correctly rounded, as in decode_attention
     q_pos = offset[:, None] + jnp.arange(s)[None, :]  # (b, s)
     mask = jnp.arange(cl)[None, None, :] <= q_pos[..., None]  # (b, s, cl)
     scores = jnp.where(mask[:, None], scores, -1e30)
     attn = jax.nn.softmax(scores, axis=-1)
     attn = attn * att["v_scale"][:, :, None, :]
     vf = att["v_codes"].astype(jnp.float32)
-    return jnp.einsum("bhqk,bhkd->bqhd", attn, vf)
+    return jnp.einsum("bhqk,bhkd->bqhd", attn, vf, precision=_HI)
 
 
 def fused_decode_apply(fm: FusedDecodeModel, cache, toks):
@@ -216,7 +227,7 @@ def fused_decode_apply(fm: FusedDecodeModel, cache, toks):
     engine can swap this in as its execution backend. ``cache=None`` starts
     from a fresh cache (mirrors flax auto-init on first apply).
 
-    s == 1 runs the fused single-token step (Pallas attention kernel);
+    s == 1 runs the fused single-token step (``decode_attention``);
     s > 1 is the prefill path (same math, batched queries, plain XLA).
     """
     b, s = toks.shape
@@ -291,5 +302,5 @@ def fused_decode_apply(fm: FusedDecodeModel, cache, toks):
         x = x + y2
 
     x = _ln(x, fm.lnf_scale, fm.lnf_bias, fm.ln_eps)
-    logits = jnp.einsum("bsd,vd->bsv", x, fm.embed)
+    logits = jnp.einsum("bsd,vd->bsv", x, fm.embed, precision=_HI)
     return logits, {"cache": new_cache}

@@ -1,7 +1,7 @@
 """Device-free packed export: trained params -> serving artifact, on host.
 
 The on-device path (:mod:`infer.packed`) packs through jit/Pallas, which is
-right when a chip is attached. Deployment pipelines usually are not: a CPU
+right when an accelerator is attached. Deployment pipelines usually are not: a CPU
 box takes the training checkpoint and emits the packed artifact that serving
 hosts load. This module produces BIT-IDENTICAL artifacts to
 ``infer.pack_model`` + ``infer.save_packed`` using numpy plus the native C++
@@ -9,7 +9,7 @@ codec (:mod:`utils.native`, threaded; falls back to numpy transparently).
 
 The only JAX use here is one CPU-backend trace of the model on a dummy
 sample to discover quantized-layer metadata (scheme, bits, fsr, shapes) —
-no TPU, no jit of the packing math itself.
+no accelerator, no jit of the packing math itself.
 
 Parity contract (tests/test_native.py): for every scheme,
 ``host_pack_model(...)`` == ``infer.pack_model(...)`` code-for-code.

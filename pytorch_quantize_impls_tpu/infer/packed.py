@@ -1,17 +1,17 @@
 """Generic packed-model export + execution via flax method interception.
 
-Per-scheme execution plan (see kernels/__init__ for the measured rates):
+Per-scheme execution plan (PERF.md has the measured rates):
 
 | scheme  | inputs quantized?    | path                                        |
 |---------|----------------------|---------------------------------------------|
-| binary  | yes (a_bits=1)       | int8 MXU GEMM on ±1 (exact)                 |
-| xnor    | yes                  | int8 MXU GEMM + alpha epilogue (exact)      |
-| binary/xnor, fp inputs | no    | decoded ±1 int8 -> bf16 MXU                 |
+| binary  | yes (a_bits=1)       | int8 GEMM on ±1 (exact)                     |
+| xnor    | yes                  | int8 GEMM + alpha epilogue (exact)          |
+| binary/xnor, fp inputs | no    | decoded ±1 weights -> float dot             |
 | dorefa  | yes (a_bits>=1)      | integer-code GEMM + affine epilogue (exact) |
-| dorefa, fp inputs      | no    | decoded bf16 grid weights -> bf16 MXU       |
+| dorefa, fp inputs      | no    | decoded grid weights -> float dot           |
 | log     | any                  | shift (bf16 bit-assembly) GEMM              |
-| lin     | any                  | decoded bf16 grid weights -> bf16 MXU       |
-| ternary | any                  | decoded {-1,0,1} bf16 -> bf16 MXU           |
+| lin     | any                  | decoded grid weights -> float dot           |
+| ternary | any                  | decoded {-1,0,1} weights -> float dot       |
 
 All paths keep weights packed in HBM (1-8 bits/value); ``prepare`` decodes
 hot layers once (weight-stationary serving).
@@ -222,8 +222,8 @@ def _dense_forward_2d(m: QuantDense, rec: PackedLayer, x, bias, tp_axis=None):
         y = _sm.shift_gemm(x, rec.packed, fsr=rec.fsr, bits=rec.w_bits)
     else:
         # fp-input fallback: decoded weights at the input dtype, default
-        # precision (on TPU: bf16 passes + f32 accumulate, ~190 TF/s; on CPU
-        # tests: exact f32).
+        # precision (on the GPU f32 inputs run as TF32; on the CPU exact
+        # f32).
         w = rec.decoded if rec.decoded is not None else _decode_weights(rec)
         y = jnp.dot(x, w.astype(x.dtype), preferred_element_type=jnp.float32)
         if rec.alpha is not None:

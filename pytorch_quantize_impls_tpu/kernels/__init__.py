@@ -1,29 +1,25 @@
-"""Pallas TPU kernels: the TRUE low-bit execution path.
+"""Low-bit execution kernels: the TRUE low-bit path.
 
 NEW scope — the reference computes fake-quant on fp32 tensors through
 cuBLAS/cuDNN (SURVEY.md §2 "Native-kernel components — reference has NONE");
-BASELINE.json:5 mandates real packed execution. Design (measured on v5e,
-4096³, differential timing — see docs/DESIGN.md §7):
+BASELINE.json:5 mandates real packed execution. Weights are stored packed
+(planar 1/2/4-bit codes, ``ops.pack.pack_bitplanes``) and multiplied as
+int8 codes with int32 accumulation.
 
-* fp32 matmul (honest, HIGHEST)      ~ 31 TFLOP/s
-* bf16 MXU                           ~150 TFLOP/s
-* int8 MXU (Pallas, native)          ~330-393 TOP/s (84-100% of 394 peak)
-* binary fused packed GEMM           ~342-373 T/s = 11-12.2x fp32
-  (hardware-verified; the live record is BENCH_TPU_LAST_GOOD.json at the
-  repo root, rewritten by every successful TPU bench run with value,
-  spread, timestamp and commit — cite that file, not a frozen number.)
+Every public wrapper dispatches from what it can observe
+(``common.platform()`` and the shapes): on the GPU it runs a compiled Pallas
+kernel (Triton route) where that kernel beat the plain XLA form end to end,
+and the plain form elsewhere; on the CPU it runs the plain form. Two
+hand-written kernels remain, both for the decode step:
 
-so every kernel here decodes packed weights IN VMEM and feeds the MXU with
-int8/bf16 — the TPU-native answer to CUDA popcount tricks (the VPU popcount
-route tops out ~40 Top/s; the MXU route is ~10x faster AND keeps the 1-bit
-HBM footprint). Weights use planar bit-packing (``ops.pack.pack_bitplanes``)
-so in-kernel unpack is shift+mask+concat only. NB: go through Pallas for
-int8 — XLA's own int8 ``jnp.dot`` widens through fp32 on v5e, ~10x slower.
+* ``binary_gemm`` at decode-sized M — 1-bit weights cross HBM as bit planes;
+* ``decode_attention`` — split-cache attention over the int8 KV cache.
 
-Kernels fall back to ``interpret=True`` off-TPU (CI runs them on CPU).
+PERF.md records each kernel's time on the card beside its plain rival.
+``interpret=True`` on those two wrappers runs the kernel in the Pallas
+interpreter (CPU tests).
 """
 
-from pytorch_quantize_impls_tpu.kernels.common import use_interpret  # noqa: F401
 from pytorch_quantize_impls_tpu.kernels.xnor_gemm import (  # noqa: F401
     binarize_to_int8,
     binary_gemm,
@@ -42,7 +38,6 @@ from pytorch_quantize_impls_tpu.kernels.packed_matmul import (  # noqa: F401
     dorefa_gemm,
     dorefa_gemm_decoded,
     dorefa_gemm_reference,
-    dorefa_gemm_ws,
     pack_dorefa_weights,
 )
 from pytorch_quantize_impls_tpu.kernels.shift_matmul import (  # noqa: F401
@@ -51,7 +46,6 @@ from pytorch_quantize_impls_tpu.kernels.shift_matmul import (  # noqa: F401
     shift_gemm,
     shift_gemm_decoded,
     shift_gemm_reference,
-    shift_gemm_ws,
 )
 from pytorch_quantize_impls_tpu.kernels.conv import packed_conv2d  # noqa: F401
 from pytorch_quantize_impls_tpu.kernels.decode_attention import (  # noqa: F401

@@ -1,25 +1,13 @@
-"""Packed 2-D convolution: int8 MXU conv from bit-packed HBM weights.
+"""Packed 2-D convolution: int8 conv from bit-packed weights.
 
-Covers BASELINE configs 2-5 (conv models). Two execution modes:
-
-``direct`` (default): decode the packed weight planes to int8 codes
-(weights are KB-scale — the decode is noise next to the conv) and call
-XLA's native int8 ``conv_general_dilated`` with ``preferred_element_type=
-int32`` plus a fused scale epilogue. Measured on v5e at the CIFAR models'
-hot shapes (r4, on-device chained timing): 295-312 T/s at the 256/512-ch
-stages — 9.3-9.9x the fp32-HIGHEST conv — while weights stay 1/2/4-bit
-in HBM. The 128-ch stage is occupancy/boundary-bound at ~97 T/s (3.5x).
-
-``im2col``: materialize ``conv_general_dilated_patches`` in HBM and run the
-packed Pallas GEMM. Kept as the cross-check path (and for shapes where a
-patch GEMM is preferable), but it is bandwidth-bound: the fp32 patch tensor
-is kh*kw x the activation bytes, which caps it at 0.2-0.4x fp32 conv at
-CIFAR shapes (PERF.md r3) — hence not the default.
+Covers BASELINE configs 2-5 (conv models). The packed weight planes are
+decoded to int8 codes (weights are KB-scale — the decode is noise next to
+the conv) and run through XLA's native int8 ``conv_general_dilated`` with a
+scalar epilogue, while weights stay 1/2/4-bit in HBM.
 
 Layouts: x NHWC, weights HWIO flattened to (cin*kh*kw, cout) *before*
-packing (feature dim ordered (cin, kh, kw) — the order
-``conv_general_dilated_patches`` emits, see ``_flatten_hwio``); the direct
-mode inverts that flattening back to HWIO after decoding.
+packing (feature dim ordered (cin, kh, kw), see ``_flatten_hwio``); the
+decode inverts that flattening back to HWIO.
 """
 
 from __future__ import annotations
@@ -91,7 +79,7 @@ _DN = ("NHWC", "HWIO", "NHWC")
 
 
 def decode_conv_weights(pw: PackedConv) -> jax.Array:
-    """Packed flat planes -> HWIO code weights for the direct conv path.
+    """Packed flat planes -> HWIO code weights for the int8 conv.
 
     binary/xnor: ±1 int8; dorefa: centered int8 codes ``2c - n_w``;
     log: exact ±2^e bf16. Inverts ``_flatten_hwio``'s (cin, kh, kw)
@@ -110,37 +98,19 @@ def decode_conv_weights(pw: PackedConv) -> jax.Array:
     return flat.reshape(pw.cin, kh, kw, pw.cout).transpose(1, 2, 0, 3)
 
 
-def _direct_conv2d(x, pw: PackedConv, strides, padding):
-    """Decoded-weight XLA conv: int8 MXU for binary/xnor/dorefa (exact
-    integer accumulate + scalar epilogue), bf16 for log."""
-    w4 = decode_conv_weights(pw)
-    if pw.scheme in ("binary", "xnor"):
-        # Binarize real inputs to ±1 codes; conv's internal SAME-padding
-        # zeros are exact (code 0 == value 0), matching fake-quant conv.
-        xi = x if x.dtype == jnp.int8 else jnp.where(x >= 0, 1, -1).astype(jnp.int8)
-        y = jax.lax.conv_general_dilated(
-            xi, w4, strides, padding, dimension_numbers=_DN,
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.float32)
-        if pw.alpha is not None:
-            y = y * pw.alpha
-        return y
-    if pw.scheme == "dorefa":
-        codes = x if x.dtype == jnp.int8 else pm.dorefa_act_to_int8(x, pw.a_bits)
-        y = jax.lax.conv_general_dilated(
-            codes, w4, strides, padding, dimension_numbers=_DN,
-            preferred_element_type=jnp.int32,
-        ).astype(jnp.float32)
-        n_w = 2**pw.w_bits - 1
-        n_a = 2**pw.a_bits - 1
-        return y * (1.0 / (n_w * n_a))
-    if pw.scheme == "log":
-        y = jax.lax.conv_general_dilated(
-            x.astype(jnp.bfloat16), w4, strides, padding,
-            dimension_numbers=_DN, preferred_element_type=jnp.float32,
-        )
-        return y
-    raise ValueError(pw.scheme)
+def int8_conv(x, w, strides, padding):
+    """int8 x int8 conv with exact integer sums returned as float32.
+
+    cuDNN's integer convolutions give int8 or float32 results, never int32
+    (XLA's GPU backend refuses an int32 one at compile time), so the sums
+    are asked for in float32. That is exact while every |sum| < 2^24: binary
+    layers reach at most K = kh*kw*cin <= 4,608 and 4-bit DoReFa layers at
+    most 15 * 15 * 4,608 ~= 1.04M, so every layer of the model zoo qualifies.
+    """
+    return jax.lax.conv_general_dilated(
+        x, w, strides, padding, dimension_numbers=_DN,
+        preferred_element_type=jnp.float32,
+    )
 
 
 def packed_conv2d(
@@ -149,50 +119,32 @@ def packed_conv2d(
     *,
     strides: Tuple[int, int] = (1, 1),
     padding: Union[str, Sequence[Tuple[int, int]]] = "SAME",
-    interpret: Optional[bool] = None,
-    mode: str = "direct",
 ) -> jax.Array:
-    """NHWC packed conv. Input handling per scheme:
+    """NHWC packed conv: decoded weights through XLA's int8 (bf16 for log)
+    conv. Input handling per scheme:
 
     'binary'/'xnor': x is sign-binarized (full-binary conv; pre-scale real
     inputs outside if needed); 'dorefa': x is fake-quant [0,1] activations
     (``a_bits``); 'log': x used as-is in bf16.
-
-    ``mode='direct'`` (default) decodes weights and runs XLA's int8/bf16
-    conv (see module docstring); ``mode='im2col'`` runs patch extraction +
-    the packed Pallas GEMM.
     """
-    if mode == "direct":
-        return _direct_conv2d(x, pw, strides, padding)
-    b, h, w_, cin = x.shape
-    kh, kw = pw.kernel_size
+    w4 = decode_conv_weights(pw)
     if pw.scheme in ("binary", "xnor"):
-        # Binarize BEFORE patch extraction so SAME-padding zeros stay 0
-        # (ternary int8 input to the GEMM), matching zero-padded fake-quant
-        # conv semantics. binarize_to_int8 would map padding 0 -> +1.
-        x = jnp.where(x >= 0, 1.0, -1.0).astype(x.dtype)
-    patches = jax.lax.conv_general_dilated_patches(
-        x,
-        (kh, kw),
-        strides,
-        padding,
-        dimension_numbers=("NHWC", "HWIO", "NHWC"),
-    )
-    bo, ho, wo, kdim = patches.shape
-    flat = patches.reshape(bo * ho * wo, kdim)
-    if pw.scheme in ("binary", "xnor"):
-        xi = flat.astype(jnp.int8)  # exact {-1, 0, +1}
-        out = bg.binary_gemm(xi, pw.packed, pw.alpha, interpret=interpret)
-    elif pw.scheme == "dorefa":
-        codes = pm.dorefa_act_to_int8(flat, pw.a_bits)
-        out = pm.dorefa_gemm(
-            codes, pw.packed, w_bits=pw.w_bits, a_bits=pw.a_bits,
-            interpret=interpret,
+        # Binarize real inputs to ±1 codes; conv's internal SAME-padding
+        # zeros are exact (code 0 == value 0), matching fake-quant conv.
+        xi = x if x.dtype == jnp.int8 else jnp.where(x >= 0, 1, -1).astype(jnp.int8)
+        y = int8_conv(xi, w4, strides, padding)
+        if pw.alpha is not None:
+            y = y * pw.alpha
+        return y
+    if pw.scheme == "dorefa":
+        codes = x if x.dtype == jnp.int8 else pm.dorefa_act_to_int8(x, pw.a_bits)
+        y = int8_conv(codes, w4, strides, padding)
+        n_w = 2**pw.w_bits - 1
+        n_a = 2**pw.a_bits - 1
+        return y * (1.0 / (n_w * n_a))
+    if pw.scheme == "log":
+        return jax.lax.conv_general_dilated(
+            x.astype(jnp.bfloat16), w4, strides, padding,
+            dimension_numbers=_DN, preferred_element_type=jnp.float32,
         )
-    elif pw.scheme == "log":
-        out = sm.shift_gemm(
-            flat, pw.packed, fsr=pw.fsr, bits=pw.w_bits, interpret=interpret
-        )
-    else:
-        raise ValueError(pw.scheme)
-    return out.reshape(bo, ho, wo, pw.cout)
+    raise ValueError(pw.scheme)

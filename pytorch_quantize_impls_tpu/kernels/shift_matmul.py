@@ -1,26 +1,24 @@
-"""Shift-based log-quant matmul: power-of-2 weights on the bf16 MXU.
+"""Log-quant matmul: power-of-2 weights assembled as exact bf16 patterns.
 
-Log-quantized weights are ``±2^e`` (``ops.log_quant``). The CUDA-style
-realization would turn multiplies into integer shifts; the TPU-native
-realization assembles the bf16 *bit pattern* directly —
+Log-quantized weights are ``±2^e`` (``ops.log_quant``). Rather than turning
+multiplies into integer shifts, the decode assembles the bf16 *bit pattern*
+directly —
 
     bf16(±2^e) = sign << 15 | (e + 127) << 7      (mantissa = 0, exact)
 
-— a couple of VPU integer ops per weight, then feeds the MXU at the full
-bf16 rate (~184 TFLOP/s measured, ~6x honest fp32). Weight storage is the
-packed (sign, exponent-index) code from ``ops.pack.log_to_codes`` (8-bit
-planar fields, 4 codes per uint32 lane -> 4x HBM saving vs f32).
+— a few integer ops per weight that XLA fuses into one elementwise pass,
+then a bf16 dot with f32 accumulation. Weight storage is the packed
+(sign, exponent-index) code from ``ops.pack.log_to_codes`` (8-bit planar
+fields, 4 codes per uint32 word -> 4x HBM saving vs f32). (A fused-decode
+shift GEMM is worth writing again; see ROADMAP.)
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Optional
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from pytorch_quantize_impls_tpu.kernels import common
 from pytorch_quantize_impls_tpu.ops import pack as packlib
@@ -41,244 +39,28 @@ def pack_log_weights(w: jax.Array, fsr: float, bits: int) -> jax.Array:
     return packlib.pack_bitplanes(codes, CODE_BITS)
 
 
-def _decode_bf16(p, bits: int, lo: int):
-    """Grouped-planar uint32 tile of 8-bit log codes -> bf16 ±2^e weights."""
-    rows = p.shape[0]
-    parts = []
-    for g in range(rows // packlib.GROUP_ROWS):
-        grp = p[g * packlib.GROUP_ROWS : (g + 1) * packlib.GROUP_ROWS]
-        for i in range(4):
-            c = (grp >> jnp.uint32(8 * i)) & jnp.uint32(0xFF)
-            # code sign bit: 1 = positive; IEEE sign bit: 1 = NEGATIVE
-            neg = jnp.uint32(1) - ((c >> jnp.uint32(bits + 1)) & jnp.uint32(1))
-            idx = c & jnp.uint32(2 ** (bits + 1) - 1)
-            exp = idx.astype(jnp.int32) + (lo + 127)  # bf16 biased exponent
-            u16 = (neg.astype(jnp.int32) << 15) | (exp << 7)
-            parts.append(u16)
-    u = jnp.concatenate(parts, axis=0).astype(jnp.uint16)
-    return jax.lax.bitcast_convert_type(u, jnp.bfloat16)
-
-
-def _kernel(x_ref, w_ref, o_ref, acc_ref, *, n_k, bits, lo):
-    k = pl.program_id(2)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    w = _decode_bf16(w_ref[:], bits, lo)
-    acc_ref[:] += jnp.dot(x_ref[:], w, preferred_element_type=jnp.float32)
-
-    @pl.when(k == n_k - 1)
-    def _():
-        o_ref[:] = acc_ref[:].astype(o_ref.dtype)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("fsr", "bits", "out_dtype", "interpret", "tiles")
-)
-def shift_gemm(
-    x: jax.Array,
-    w_packed: jax.Array,
-    *,
-    fsr: float,
-    bits: int,
-    out_dtype=jnp.float32,
-    interpret: Optional[bool] = None,
-    tiles=None,
-):
-    """(M,K) bf16/f32 @ packed log weights -> (M,N).
-
-    Exact vs ``x @ log_quant(w, fsr, bits)`` in bf16 arithmetic.
-    """
-    if interpret is None:
-        interpret = common.use_interpret()
-    lo = int(fsr) - 2**bits
-    gk = packlib.planar_group_k(CODE_BITS)  # 128
-    m, k = x.shape
-    r, n = w_packed.shape
-    kp = r * 4
-    assert kp % gk == 0, (kp, gk)
-    x = common.pad_dim(x.astype(jnp.bfloat16), 1, kp)
-
-    tm, tn, tk = tiles or common.pick_tiles(m, n, kp)
-    tk = min(common.round_up(tk, gk), kp)
-    mp, np_, kp2 = common.round_up(m, tm), common.round_up(n, tn), common.round_up(kp, tk)
-    x = common.pad_dim(common.pad_dim(x, 0, mp), 1, kp2)
-    w_packed = common.pad_dim(common.pad_dim(w_packed, 0, kp2 // 4), 1, np_)
-
-    n_k = kp2 // tk
-    grid = (mp // tm, np_ // tn, n_k)
-    out = pl.pallas_call(
-        functools.partial(_kernel, n_k=n_k, bits=bits, lo=lo),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, tk), lambda i, j, k: (i, k), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (tk // 4, tn), lambda i, j, k: (k, j), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (tm, tn), lambda i, j, k: (i, j), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((mp, np_), out_dtype),
-        scratch_shapes=[pltpu.VMEM((tm, tn), jnp.float32)],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "parallel", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * mp * np_ * kp2,
-            bytes_accessed=mp * kp2 * 2 + kp2 * np_ + mp * np_ * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(x, w_packed)
-    return out[:m, :n]
-
-
-def _ws_kernel(x_ref, w_ref, o_ref, acc_ref, wdec_ref, *, n_k, tm, bits, lo):
-    """Weight-stationary-decode body: grid (j, k, i), i innermost.
-
-    Each packed log-code tile (k, j) is decoded to bf16 ONCE (at i == 0)
-    into the wdec VMEM scratch and reused by every M-tile; the accumulator
-    is a full (n_i*tm, tn) strip so all M-tiles' partials persist across k.
-    """
-    k = pl.program_id(1)
-    i = pl.program_id(2)
-    rows = pl.ds(i * tm, tm)
-
-    @pl.when(i == 0)
-    def _():
-        wdec_ref[:] = _decode_bf16(w_ref[:], bits, lo)
-
-    @pl.when(k == 0)
-    def _():
-        acc_ref[rows, :] = jnp.zeros((tm, acc_ref.shape[1]), jnp.float32)
-
-    acc_ref[rows, :] += jnp.dot(
-        x_ref[:], wdec_ref[:], preferred_element_type=jnp.float32
-    )
-
-    @pl.when(k == n_k - 1)
-    def _():
-        o_ref[:] = acc_ref[rows, :].astype(o_ref.dtype)
-
-
-@functools.partial(
-    jax.jit, static_argnames=("fsr", "bits", "out_dtype", "interpret", "tiles")
-)
-def shift_gemm_ws(
-    x: jax.Array,
-    w_packed: jax.Array,
-    *,
-    fsr: float,
-    bits: int,
-    out_dtype=jnp.float32,
-    interpret: Optional[bool] = None,
-    tiles=None,
-):
-    """Packed-resident shift GEMM with a single bf16 decode per weight tile.
-
-    Same contract as :func:`shift_gemm`; wins when M is large enough that
-    re-decoding weights per M-tile dominates (the default kernel decodes
-    each (k, j) tile M/TM times; this one, once)."""
-    if interpret is None:
-        interpret = common.use_interpret()
-    lo = int(fsr) - 2**bits
-    gk = packlib.planar_group_k(CODE_BITS)
-    m, k = x.shape
-    r, n = w_packed.shape
-    kp = r * 4
-    assert kp % gk == 0, (kp, gk)
-    x = common.pad_dim(x.astype(jnp.bfloat16), 1, kp)
-
-    tm, tn, tk = tiles or (256, 512, 2048)
-    tn = min(common.round_up(n, 128), tn)
-    tk = min(common.round_up(tk, gk), kp)
-    mp, np_, kp2 = common.round_up(m, tm), common.round_up(n, tn), common.round_up(kp, tk)
-    x = common.pad_dim(common.pad_dim(x, 0, mp), 1, kp2)
-    w_packed = common.pad_dim(common.pad_dim(w_packed, 0, kp2 // 4), 1, np_)
-
-    n_k = kp2 // tk
-    n_i = mp // tm
-    grid = (np_ // tn, n_k, n_i)
-    out = pl.pallas_call(
-        functools.partial(_ws_kernel, n_k=n_k, tm=tm, bits=bits, lo=lo),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tm, tk), lambda j, k, i: (i, k), memory_space=pltpu.VMEM),
-            pl.BlockSpec(
-                (tk // 4, tn), lambda j, k, i: (k, j), memory_space=pltpu.VMEM
-            ),
-        ],
-        out_specs=pl.BlockSpec(
-            (tm, tn), lambda j, k, i: (i, j), memory_space=pltpu.VMEM
-        ),
-        out_shape=jax.ShapeDtypeStruct((mp, np_), out_dtype),
-        scratch_shapes=[
-            pltpu.VMEM((mp, tn), jnp.float32),
-            pltpu.VMEM((tk, tn), jnp.bfloat16),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary", "arbitrary"),
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * mp * np_ * kp2,
-            bytes_accessed=mp * kp2 * 2 * (np_ // tn) + kp2 * np_
-            + mp * np_ * 4,
-            transcendentals=0,
-        ),
-        interpret=interpret,
-    )(x, w_packed)
-    return out[:m, :n]
-
-
-def _decode_only_kernel(p_ref, o_ref, *, bits, lo):
-    o_ref[:] = _decode_bf16(p_ref[:], bits, lo)
-
-
-@functools.partial(jax.jit, static_argnames=("fsr", "bits", "interpret"))
-def decode_log_weights(
-    w_packed: jax.Array, *, fsr: float, bits: int, interpret=None
-) -> jax.Array:
+@functools.partial(jax.jit, static_argnames=("fsr", "bits"))
+def decode_log_weights(w_packed: jax.Array, *, fsr: float, bits: int) -> jax.Array:
     """Packed log codes -> bf16 ±2^e weights (K, N): one-time decode pass.
 
     Serving keeps hot log-quant weights decoded (bf16 is exact for powers
     of two, 2x smaller than f32); cold/TP-resident weights stay packed
     (4x smaller)."""
-    if interpret is None:
-        interpret = common.use_interpret()
     lo = int(fsr) - 2**bits
-    gk = packlib.planar_group_k(CODE_BITS)
-    r, n = w_packed.shape
-    k = r * 4
-    tk = min(common.round_up(k, gk), 2048)
-    tn = min(common.round_up(n, 128), 1024)
-    kp = common.round_up(k, tk)
-    np_ = common.round_up(n, tn)
-    w_packed = common.pad_dim(common.pad_dim(w_packed, 0, kp // 4), 1, np_)
-    out = pl.pallas_call(
-        functools.partial(_decode_only_kernel, bits=bits, lo=lo),
-        grid=(kp // tk, np_ // tn),
-        in_specs=[
-            pl.BlockSpec(
-                (tk // 4, tn), lambda i, j: (i, j), memory_space=pltpu.VMEM
-            )
-        ],
-        out_specs=pl.BlockSpec((tk, tn), lambda i, j: (i, j), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((kp, np_), jnp.bfloat16),
-        interpret=interpret,
-    )(w_packed)
-    return out[:k, :n]
+    c = packlib.unpack_bitplanes(w_packed, CODE_BITS, w_packed.shape[0] * 4)
+    # code sign bit: 1 = positive; IEEE sign bit: 1 = NEGATIVE
+    neg = 1 - ((c >> (bits + 1)) & 1)
+    exp = (c & (2 ** (bits + 1) - 1)) + (lo + 127)  # bf16 biased exponent
+    u16 = ((neg << 15) | (exp << 7)).astype(jnp.uint16)
+    return jax.lax.bitcast_convert_type(u16, jnp.bfloat16)
 
 
 @functools.partial(jax.jit, static_argnames=("out_dtype",))
 def shift_gemm_decoded(
     x: jax.Array, w_bf16: jax.Array, *, out_dtype=jnp.float32
 ):
-    """Serving fast path: pre-decoded bf16 power-of-2 weights through the
-    plain XLA bf16 matmul (runs at the full bf16 MXU rate; the shift
-    semantics are already burnt into the exact bf16 bit patterns)."""
+    """Pre-decoded bf16 power-of-2 weights through the plain bf16 dot (the
+    shift semantics are already burnt into the exact bf16 bit patterns)."""
     k = w_bf16.shape[0]
     xb = common.pad_dim(x.astype(jnp.bfloat16), 1, k)
     return jnp.dot(xb, w_bf16, preferred_element_type=jnp.float32).astype(
@@ -286,8 +68,26 @@ def shift_gemm_decoded(
     )
 
 
+@functools.partial(jax.jit, static_argnames=("fsr", "bits", "out_dtype"))
+def shift_gemm(
+    x: jax.Array,
+    w_packed: jax.Array,
+    *,
+    fsr: float,
+    bits: int,
+    out_dtype=jnp.float32,
+):
+    """(M,K) bf16/f32 @ packed log weights -> (M,N).
+
+    Exact vs ``x @ log_quant(w, fsr, bits)`` in bf16 arithmetic.
+    """
+    w = decode_log_weights(w_packed, fsr=fsr, bits=bits)
+    return shift_gemm_decoded(x, w, out_dtype=out_dtype)
+
+
 def shift_gemm_reference(x, w_packed, *, fsr: float, bits: int):
-    """Pure-XLA twin in the same bf16 arithmetic."""
+    """Independent twin in the same bf16 arithmetic (weights rebuilt through
+    ``ops.log_lin`` rather than bit assembly)."""
     r, n = w_packed.shape
     codes = packlib.unpack_bitplanes(w_packed, CODE_BITS, r * 4)
     sign, idx = packlib.codes_to_log(codes, bits)

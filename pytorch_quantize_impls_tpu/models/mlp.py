@@ -36,7 +36,7 @@ class MLP(fnn.Module):
     elastic_grid: str = "binary"
     use_batchnorm: bool = True
     # Mixed precision: compute dtype for matmuls/BN (e.g. jnp.bfloat16 for
-    # the MXU fast path); fp32 master weights are unaffected — quantizers
+    # the tensor cores' fast path); fp32 master weights are unaffected — quantizers
     # always read the fp32 masters, only the GEMM inputs are cast.
     dtype: Optional[Any] = None
     # Output layer scheme. None -> same as `layer`, EXCEPT stochastic

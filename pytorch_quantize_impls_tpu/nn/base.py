@@ -61,8 +61,8 @@ class QuantDense(nn.Module):
     """Dense layer with quantized weights (and optionally inputs).
 
     Mirrors the reference hot loop (SURVEY.md §3.1): quantize the fp32 master
-    kernel per call, then one matmul — which XLA fuses and runs on the MXU in
-    bf16 for the fake-quant path.
+    kernel per call, then one matmul — which XLA fuses and runs on the tensor
+    cores in bf16 for the fake-quant path.
     """
 
     features: int

@@ -5,7 +5,7 @@
 fp32 master kernel per forward; "full BNN" mode (``binarize_input=True``)
 additionally sign-binarizes the incoming activation with hard-tanh STE
 (arXiv:1602.02830). ``ShiftNormBatch`` is the BNN paper's shift-based batch
-norm approximated TPU-natively (power-of-2 scales).
+norm approximated with power-of-2 scales.
 """
 
 from __future__ import annotations

@@ -2,12 +2,12 @@
 extension for expert parallelism (EP); the reference has no MoE and no
 parallelism at all (SURVEY.md §2 "Parallelism & communication — NONE").
 
-TPU-native design: routing is realized with dense one-hot dispatch/combine
-einsums (the Switch-Transformer/flaxformer pattern) so everything is static
--shape MXU work — no gather/scatter, no data-dependent control flow under
+Design: routing is realized with dense one-hot dispatch/combine einsums
+(the Switch-Transformer/flaxformer pattern) so everything is static-shape
+matmul work — no gather/scatter, no data-dependent control flow under
 jit. Expert FFN kernels are stacked on a leading ``n_experts`` axis, so EP
 is just a NamedSharding ``P("expert")`` (or the "model" axis) on that axis:
-GSPMD turns the dispatch/combine einsums into all-to-alls over ICI.
+GSPMD turns the dispatch/combine einsums into all-to-alls between devices.
 
 The expert FFNs are *quantized*: each expert's two kernels go through a
 scheme quantizer (binary/ternary/dorefa/log/lin — anything in

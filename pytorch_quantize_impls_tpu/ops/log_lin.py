@@ -14,7 +14,7 @@ Paper: Logarithmic Data Representation (arXiv:1603.01025, Miyashita et al.).
 * ``lin_quant(x; fsr, bits)``: uniform grid, step ``Δ = 2^(fsr - bits)``,
   ``clip(round(x/Δ)Δ, -2^fsr, 2^fsr)``; identity STE.
 
-This is the scheme the Pallas layer turns into shift-based matmul: a weight
+This is the scheme the kernels turn into a shift-based matmul: a weight
 becomes (sign, exponent) and multiplication becomes an exponent add — see
 ``kernels/shift_matmul.py``.
 """

@@ -1,11 +1,11 @@
-"""Bit packing: 1/2/4-bit codes <-> int32 lanes, TPU-friendly layouts.
+"""Bit packing: 1/2/4-bit codes <-> uint32 words.
 
 NEW scope (no reference counterpart — the reference does fake-quant only,
 SURVEY.md §2 "Native-kernel components"). These are the host/XLA-side packing
-utilities backing the Pallas packed kernels; layout rules:
+utilities backing the packed GEMMs; layout rules:
 
-* pack along the **last** dimension (TPU lane dimension), ``factor = 32 //
-  bits`` codes per ``uint32`` lane;
+* pack along the **last** dimension, ``factor = 32 // bits`` codes per
+  ``uint32`` word;
 * inputs are unsigned *codes* in ``[0, 2^bits)`` (signed values map through
   offset or sign encodings below);
 * sizes are padded with zero-codes to a multiple of the pack factor —
@@ -131,22 +131,21 @@ def codes_to_log(c: Array, bits: int):
     return sign.astype(jnp.int32), (c & (2 ** (bits + 1) - 1)).astype(jnp.int32)
 
 
-# --- grouped-planar (bit-plane) packing: the TPU-kernel layout -------------
+# --- grouped-planar (bit-plane) packing: the packed-kernel layout ----------
 #
 # ``pack`` above interleaves codes *within* a lane word (little-endian along
-# the last dim) — the natural Python layout. The Pallas GEMM kernels instead
-# want GROUPED-PLANAR packing along the *contraction* (second-to-last) axis:
+# the last dim) — the natural Python layout. The packed GEMMs instead want
+# GROUPED-PLANAR packing along the *contraction* (second-to-last) axis:
 #
 #   factor   f = 32 // bits          codes per uint32 word
 #   group    GROUP_ROWS = 32 words   covering group_k = f * 32 k-rows
 #   word[g * 32 + r, n] stores code ``codes[g * group_k + i * 32 + r, n]``
 #   in bit field ``[bits*i, bits*(i+1))``.
 #
-# Each 32-word group decodes independently with f shift+mask ops and ONE
-# sublane-axis concat in natural K order — no strided scatter, no 3-D
-# reshape (both of which Mosaic dislikes) — and, crucially, any K-tile that
-# is a multiple of ``group_k`` decodes without global context, so kernels
-# may tile K freely.
+# Bit field i of one 32-word group is a contiguous 32-row slab of K, so a
+# kernel extracts it with one shift+mask and multiplies it against the
+# matching 32 activation columns; any K range that is a multiple of
+# ``group_k`` decodes without global context, so kernels may split K freely.
 
 GROUP_ROWS = 32
 
@@ -166,35 +165,27 @@ def pack_bitplanes(codes: Array, bits: int) -> Array:
     f = pack_factor(bits)
     gk = planar_group_k(bits)
     codes = jnp.asarray(codes)
-    k = codes.shape[-2]
+    *lead, k, n = codes.shape
     kp = -(-k // gk) * gk
     if kp != k:
-        pad_width = [(0, 0)] * (codes.ndim - 2) + [(0, kp - k), (0, 0)]
+        pad_width = [(0, 0)] * len(lead) + [(0, kp - k), (0, 0)]
         codes = jnp.pad(codes, pad_width)
-    n_groups = kp // gk
-    c = codes.astype(jnp.uint32)
-    out_rows = []
-    for g in range(n_groups):
-        word = jnp.zeros(c.shape[:-2] + (GROUP_ROWS, c.shape[-1]), jnp.uint32)
-        base = g * gk
-        for i in range(f):
-            word = word | (
-                c[..., base + i * GROUP_ROWS : base + (i + 1) * GROUP_ROWS, :]
-                << jnp.uint32(bits * i)
-            )
-        out_rows.append(word)
-    return jnp.concatenate(out_rows, axis=-2)
+    # (..., G, f, 32, N): field i of word (g, r) holds row g*gk + i*32 + r;
+    # the fields are disjoint, so OR-ing them is a sum
+    c = codes.astype(jnp.uint32).reshape(*lead, kp // gk, f, GROUP_ROWS, n)
+    shifts = (jnp.arange(f, dtype=jnp.uint32) * jnp.uint32(bits)).reshape(f, 1, 1)
+    words = jnp.sum(c << shifts, axis=-3, dtype=jnp.uint32)
+    return words.reshape(*lead, (kp // gk) * GROUP_ROWS, n)
 
 
 def unpack_bitplanes(word: Array, bits: int, k: int) -> Array:
     """Inverse of :func:`pack_bitplanes`; returns int32 codes, axis -2 = k."""
     f = pack_factor(bits)
     mask = jnp.uint32(2**bits - 1)
-    r = word.shape[-2]
+    *lead, r, n = word.shape
     assert r % GROUP_ROWS == 0, r
-    parts = []
-    for g in range(r // GROUP_ROWS):
-        grp = word[..., g * GROUP_ROWS : (g + 1) * GROUP_ROWS, :]
-        for i in range(f):
-            parts.append(((grp >> jnp.uint32(bits * i)) & mask).astype(jnp.int32))
-    return jnp.concatenate(parts, axis=-2)[..., :k, :]
+    # (..., G, 1, 32, N) >> (f, 1, 1) -> (..., G, f, 32, N): row g*gk + i*32 + r
+    grp = word.reshape(*lead, r // GROUP_ROWS, 1, GROUP_ROWS, n)
+    shifts = (jnp.arange(f, dtype=jnp.uint32) * jnp.uint32(bits)).reshape(f, 1, 1)
+    codes = (grp >> shifts) & mask
+    return codes.reshape(*lead, r * f, n)[..., :k, :].astype(jnp.int32)

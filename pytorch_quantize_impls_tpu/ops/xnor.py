@@ -51,7 +51,7 @@ def xnor_input_scale_map(
 
     ``A = mean over channels |I|``; ``K = A * avg_pool-style conv with the
     all-ones/khkw kernel`` at stride 1, SAME padding. ``x`` is NHWC
-    (TPU-native layout); returns shape ``(N, H, W, 1)``.
+    (channels-last layout); returns shape ``(N, H, W, 1)``.
     """
     a = jnp.mean(jnp.abs(x), axis=channel_axis, keepdims=True)
     kh, kw = kernel_size

@@ -1,9 +1,10 @@
 """Distribution layer — NEW scope, no reference counterpart (SURVEY.md §2
 "Parallelism & communication components — reference has NONE").
 
-TPU-native realization: a named device ``Mesh`` ("data", "model"), parameter
+Realization: a named device ``Mesh`` ("data", "model"), parameter
 and batch ``NamedSharding`` rules, and jit/GSPMD train steps where XLA inserts
-the collectives (psum for DP grads over ICI, all-gather for TP'd weights).
+the collectives (psum for DP grads, all-gather for TP'd weights; NCCL over
+NVLink on one GPU host).
 Multi-host init and explicit shard_map collective-matmul live here too.
 """
 

@@ -130,7 +130,7 @@ def allgather_matmul_q8(
     tested). Call INSIDE shard_map. x_local (Mc, K); w local (K, N).
 
     If ``w.dtype == int8`` (e.g. decoded ±1 binary weights) the local
-    compute is the int8 MXU GEMM with the scale applied in the epilogue —
+    compute is the int8 GEMM with the scale applied in the epilogue —
     composing with packed TP serving.
     """
     from pytorch_quantize_impls_tpu.parallel.quantized_collectives import (
@@ -173,8 +173,8 @@ def allgather_matmul_b1(x_codes, w, axis_name: str = MODEL_AXIS):
 
     Call INSIDE shard_map. ``x_codes``: this device's M-shard of ±1 int8
     activation codes (Mc, K), K % 32 == 0; ``w``: local weights — int8 ±1
-    codes for the int8 MXU path, or any fp dtype. This is the TP serving
-    composition: binary activations cross the ICI as 1-bit planes, exactly
+    codes for the int8 GEMM path, or any fp dtype. This is the TP serving
+    composition: binary activations cross the interconnect as 1-bit planes, exactly
     like the packed weights rest in HBM (BASELINE.json:5).
     """
     n = jax.lax.axis_size(axis_name)
@@ -227,7 +227,7 @@ def tp_binary_dense(
     """Column-parallel binary dense over the mesh model axis.
 
     x replicated on 'model' (sharded on 'data' as usual); w8 column-sharded.
-    Local compute is the int8 MXU GEMM; the optional output all-gather is the
+    Local compute is the int8 GEMM; the optional output all-gather is the
     only collective.
     """
 

@@ -1,10 +1,12 @@
 """Device mesh construction (data x model axes).
 
-One mesh serves every scale: a single chip (1x1), one host (e.g. 4x2), or a
-multi-host pod slice — `jax.make_mesh` lays devices out so the "model" axis
-rides ICI within a host and "data" spans hosts/DCN, which is the layout the
-collectives want (TP all-gathers are latency-bound, DP psums are
-bandwidth-bound and overlap with backward).
+One mesh serves every scale: a single card (1x1), one host (e.g. 4x1 or
+2x2), or several hosts. Within a host the GPUs are joined all to all by
+NVLink, every pair at the same rate, so the mesh shape follows the
+algorithm alone: TP all-gathers are latency-bound and DP psums are
+bandwidth-bound and overlap with backward, and neither cares which cards
+share an axis. Only across hosts, where the network is much slower than
+NVLink, should the "model" axis stay inside a host and "data" span hosts.
 """
 
 from __future__ import annotations
@@ -29,8 +31,9 @@ def make_mesh(
 
     ``shape=None`` auto-selects: all devices on the data axis (pure DP) —
     the right default for the CNN/MLP workloads of BASELINE configs 1-5,
-    where weights fit on-chip and batch scaling is what matters. Pass an
-    explicit shape (e.g. ``(n // 2, 2)``) for TP.
+    where weights fit on one card and batch scaling is what matters. Pass
+    an explicit shape (e.g. ``(n // 2, 2)``) for TP; on one NVLink host any
+    factorisation has the same link rate between every pair of cards.
     """
     devs = list(devices) if devices is not None else jax.devices()
     n = len(devs)

@@ -2,11 +2,11 @@
 axis — NEW scope, no reference counterpart (SURVEY.md §2 "Parallelism &
 communication components — reference has NONE").
 
-TPU-native realization (scaling-book pipelining recipe): each pipe-axis
+Realization (scaling-book pipelining recipe): each pipe-axis
 device holds ONE stage's parameters (stage-stacked pytrees sharded on their
 leading axis), a ``lax.scan`` steps the pipeline ``n_micro + n_stages - 1``
 ticks, and ``jax.lax.ppermute`` shifts activations to the next stage over
-ICI each tick. The whole schedule is a pure, differentiable function —
+the interconnect each tick. The whole schedule is a pure, differentiable function —
 ``jax.grad`` transposes the scan + ppermute into the reverse (1F1B-shaped)
 backward automatically, so quantized STE training works through the
 pipeline unchanged.

@@ -18,8 +18,7 @@ uncompressed training.
 
 from __future__ import annotations
 
-from functools import partial
-from typing import Callable
+from typing import Callable, Optional
 
 import jax
 import jax.numpy as jnp
@@ -29,10 +28,6 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
 
 from pytorch_quantize_impls_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS
-from pytorch_quantize_impls_tpu.train.steps import (
-    cross_entropy,
-    make_compute_loss,
-)
 
 Array = jax.Array
 
@@ -157,7 +152,7 @@ def make_quantized_dp_train_step(
     *,
     bits: int = 8,
     elastic_weight: float = 0.0,
-    loss_fn: Callable = cross_entropy,
+    loss_fn: Optional[Callable] = None,
     has_quant_rng: bool = False,
 ):
     """Pure-DP train step with int8/int4 gradient all-reduce.
@@ -172,7 +167,17 @@ def make_quantized_dp_train_step(
     — the standard local-BN DP convention — while the running averages are
     pmean-synced across devices. The GSPMD path normalizes over the global
     batch; expect small training-dynamics differences on BN models.
+
+    ``loss_fn`` defaults to ``train.steps.cross_entropy``.
     """
+    # the training layer (flax) is imported here, not at module import, so
+    # the collectives serve the flax-free paths too
+    from pytorch_quantize_impls_tpu.train.steps import (
+        cross_entropy,
+        make_compute_loss,
+    )
+
+    loss_fn = loss_fn or cross_entropy
     if MODEL_AXIS in mesh.shape and mesh.shape[MODEL_AXIS] != 1:
         raise ValueError(
             "quantized DP step is data-parallel only; use a (n, 1) mesh "

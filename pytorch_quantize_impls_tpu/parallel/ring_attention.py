@@ -5,9 +5,9 @@ NEW scope: the reference has no attention or sequence workloads at all
 inapplicable"); this module completes the framework's parallel surface
 (DP/TP/PP/SP/EP + CP) for the quantized-transformer extension.
 
-TPU-native realization (blockwise/ring attention, Liu et al.): every device
+Realization (blockwise/ring attention, Liu et al.): every device
 of a mesh axis holds one contiguous sequence chunk of Q, K, V. K/V chunks
-rotate around the ring with ``jax.lax.ppermute`` (one ICI hop per step)
+rotate around the ring with ``jax.lax.ppermute`` (one hop per step)
 while each device folds the visiting chunk into a numerically-stable
 *online softmax* accumulator (the flash-attention recurrence: running max
 ``m``, running normalizer ``l``, unnormalized output ``o``). After

@@ -2,19 +2,21 @@
 
 Default layout for the quantized CNN/MLP workloads:
 
-* batch axis           -> ``"data"``  (DP: XLA psums grads over ICI/DCN)
+* batch axis           -> ``"data"``  (DP: XLA psums grads across devices)
 * weight out-features  -> ``"model"`` (TP: XLA all-gathers/reduce-scatters
   around the matmuls; degenerate (size-1) on pure-DP meshes)
 * biases / norm params / scalars -> replicated
 
 Packing discipline for the true low-bit path: TP shards are cut on
 *unpacked* element boundaries and packed per-shard afterwards
-(``kernels``/``infer``), so a packed uint32 lane never straddles shards
+(``kernels``/``infer``), so a packed uint32 word never straddles shards
 (SURVEY.md §2 parallelism table).
 
 The train step itself is the SAME function as single-chip
 (``train.steps``) — sharded inputs make jit compile it SPMD; that is the
-whole point of the jit+NamedSharding design.
+whole point of the jit+NamedSharding design. (The step builders import the
+training layer, which needs flax, when they are called; placement helpers
+such as ``batch_sharding`` do not.)
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from pytorch_quantize_impls_tpu.parallel.mesh import DATA_AXIS, MODEL_AXIS
-from pytorch_quantize_impls_tpu.train.steps import make_eval_step, make_train_step
 
 
 def replicate(mesh: Mesh) -> NamedSharding:
@@ -75,6 +76,8 @@ def make_sharded_train_step(state, mesh: Mesh, **step_kwargs):
     with explicit in/out shardings over ``mesh``. XLA inserts the DP psum and
     TP all-gather/reduce-scatter collectives and overlaps them with compute
     (latency-hiding scheduler)."""
+    from pytorch_quantize_impls_tpu.train.steps import make_train_step
+
     sharded_state, state_shardings = shard_train_state(state, mesh)
     inner = make_train_step(donate=False, jit=False, **step_kwargs)
 
@@ -89,6 +92,8 @@ def make_sharded_train_step(state, mesh: Mesh, **step_kwargs):
 
 
 def make_sharded_eval_step(state_shardings, mesh: Mesh):
+    from pytorch_quantize_impls_tpu.train.steps import make_eval_step
+
     inner = make_eval_step(jit=False)
     out = {
         "loss": replicate(mesh),

@@ -4,15 +4,15 @@ NEW scope: the reference has no sequence workloads (SURVEY.md §5 records
 ring/Ulysses/CP as absent there); together with ``ring_attention.py`` this
 completes both standard context-parallel attention strategies.
 
-TPU-native realization (DeepSpeed-Ulysses, Jacobs et al. 2023): activations
+Realization (DeepSpeed-Ulysses, Jacobs et al. 2023): activations
 arrive sequence-sharded — each device of the axis holds ``(b, s/P, h, d)``.
 One ``jax.lax.all_to_all`` per tensor swaps the sharded dimension: split the
 HEAD axis P ways, concatenate the SEQUENCE axis, leaving ``(b, s, h/P, d)``
 — every device now sees the FULL sequence for a 1/P slice of heads and runs
 ordinary (flash-style) attention locally with no inter-device math. A second
 all-to-all swaps back. Two a2a pairs per attention vs the ring's P-1
-ppermute rounds: Ulysses wins when P <= h and ICI all-to-all bandwidth is
-plentiful (intra-slice), the ring wins for P > h or when overlap with the
+ppermute rounds: Ulysses wins when P <= h and all-to-all bandwidth is
+plentiful (one NVLink host), the ring wins for P > h or when overlap with the
 fold matters. ``all_to_all`` is differentiable (its transpose is the
 inverse all-to-all), so the same path serves training.
 """

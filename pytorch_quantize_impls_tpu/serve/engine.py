@@ -2,8 +2,8 @@
 
 Requests (single examples or small batches) stream in from many clients; a
 dispatch thread assembles them into padded power-of-two buckets and feeds ONE
-jitted packed forward per bucket size — so the TPU always sees static shapes
-(no recompiles) and large, MXU-friendly batches. Over a mesh, assembled
+jitted packed forward per bucket size — so the device always sees static shapes
+(no recompiles) and large, tensor-core-friendly batches. Over a mesh, assembled
 batches are sharded on the "data" axis before dispatch (DP serving across
 chips/hosts).
 

@@ -5,8 +5,8 @@ does continuous batching for stateless classifiers; here we run stateful
 decode with the int8-quantized KV cache (``models.transformer`` +
 ``ops.quantize_kv``).
 
-TPU shape discipline: prefill is ONE full-prompt forward (big matmuls on the
-MXU, cache filled in one ``dynamic_update_slice``); the decode loop is a
+Shape discipline: prefill is ONE full-prompt forward (big matmuls on the
+tensor cores, cache filled in one ``dynamic_update_slice``); the decode loop is a
 ``lax.scan`` over single-token steps — traced once, static shapes, no
 per-token Python dispatch. Greedy when ``temperature == 0``; otherwise
 categorical sampling with an explicit PRNG key (JAX RNG threading, never

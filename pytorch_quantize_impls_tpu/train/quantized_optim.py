@@ -11,8 +11,8 @@ state after the params themselves. This transform stores them quantized:
 each with a per-block fp32 absmax = 2 bytes/param + 4/block bytes of
 scales: a ~4x optimizer-state HBM cut, in the spirit of 8-bit Adam
 (Dettmers et al., arXiv:2110.02861) but with an analytic block-wise LOG
-code instead of the dynamic-tree LUT — on TPU the decode/encode must stay
-a handful of fused VPU ops (exp2/log2), not a 256-entry gather, to
+code instead of the dynamic-tree LUT — the decode/encode must stay a
+handful of fused elementwise ops (exp2/log2), not a 256-entry gather, to
 disappear into the update's elementwise fusion under jit. The log domain
 is load-bearing, not a convenience: see the note above ``_encode``.
 

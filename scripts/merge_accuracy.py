@@ -2,7 +2,7 @@
 """Merge per-platform accuracy_sweep JSON outputs into ACCURACY.md.
 
 The sweep runs in two batches on this machine (CPU-runnable configs on host,
-CIFAR-scale configs on the TPU chip); this stitches the rows into the single
+CIFAR-scale configs on the accelerator); this stitches the rows into the single
 report the BASELINE Δacc <= 0.5% contract is judged on, with explicit data
 provenance per row (SURVEY.md §0: no real MNIST/CIFAR on this image — the
 `binaryconnect_digits` row is the real-data anchor).

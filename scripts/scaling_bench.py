@@ -3,7 +3,7 @@
 going 1 chip -> 1 host -> 2+ hosts).
 
 Measures images/s of the sharded train step at growing DP mesh sizes over
-the devices that exist (real chips on TPU; virtual CPU devices in CI via
+the devices that exist (real GPUs; virtual CPU devices in CI via
 --virtual N), holding the per-device batch fixed (weak scaling). Efficiency
 at n devices = images_per_s(n) / (n * images_per_s(1)).
 

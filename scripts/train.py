@@ -28,11 +28,11 @@ import optax
 
 from pytorch_quantize_impls_tpu import data, infer, models, parallel, train
 from pytorch_quantize_impls_tpu.utils import (
-    CheckpointManager,
     MetricsWriter,
     RunConfig,
     SCHEME_CONFIGS,
     StepTimer,
+    enable_compile_cache,
 )
 from pytorch_quantize_impls_tpu.utils.config import build_model
 from pytorch_quantize_impls_tpu.utils.metrics import setup_logging, log
@@ -80,6 +80,7 @@ def parse_args() -> RunConfig:
 def main() -> int:
     setup_logging()
     cfg = parse_args()
+    enable_compile_cache()
     if cfg.data_dir:
         os.environ[data.datasets.DATA_DIR_ENV] = cfg.data_dir
 
@@ -107,6 +108,9 @@ def main() -> int:
 
     mgr = None
     if cfg.checkpoint_dir:
+        # orbax is needed only when checkpointing is asked for
+        from pytorch_quantize_impls_tpu.utils.checkpoint import CheckpointManager
+
         mgr = CheckpointManager(cfg.checkpoint_dir)
         restored = mgr.restore(state)
         if restored is not None:

@@ -130,7 +130,7 @@ def test_allgather_matmul_q8_matches_dequantized_reference():
 
 
 def test_allgather_matmul_q8_int8_weights_path():
-    """With int8 ±1 weights the local compute is the integer MXU GEMM."""
+    """With int8 ±1 weights the local compute is the integer GEMM."""
     mesh = _mesh()
     m, k, n = 32, 64, 16
     x = jnp.asarray(RNG.normal(size=(m, k)).astype(np.float32))
@@ -151,8 +151,8 @@ def test_allgather_matmul_q8_int8_weights_path():
 
 def test_allgather_matmul_b1_exact_binary_wire():
     """1-bit-packed activation all-gather (32x wire reduction) is EXACT for
-    ±1 codes — the TP serving composition: binary activations cross the ICI
-    as sign planes, binary weights run on the int8 MXU."""
+    ±1 codes — the TP serving composition: binary activations cross the
+    interconnect as sign planes, binary weights run as int8 GEMMs."""
     mesh = _mesh()
     m, k, n = 32, 64, 24  # k % 32 == 0
     codes = jnp.asarray(RNG.choice([-1, 1], size=(m, k)), jnp.int8)

@@ -163,5 +163,5 @@ def test_fused_lenet_matches_fake_quant():
     got = infer.fused_apply(chain, x)
     assert got.shape == ref.shape
     _assert_logits_match(got, ref)
-    assert chain.stages[1].w.dtype == jnp.int8  # conv2 runs int8 MXU
+    assert chain.stages[1].w.dtype == jnp.int8  # conv2 runs as an int8 conv
     assert chain.stages[2].dense and chain.stages[2].w.dtype == jnp.int8

@@ -1,8 +1,8 @@
 """Mixed-precision (bf16 compute / fp32 masters) across the model zoo.
 
-TPU rationale: the fake-quant training path's cost is the GEMM; running it
-in bfloat16 engages the MXU fast path (SURVEY.md §7 "keep them large,
-batched, and bfloat16"). Quantizers always read the fp32 master weights —
+Rationale: the fake-quant training path's cost is the GEMM; running it in
+bfloat16 engages the tensor cores' fast path (SURVEY.md §7 "keep them
+large, batched, and bfloat16"). Quantizers always read the fp32 master weights —
 only the matmul/conv inputs are cast — so STE math and clamp domains are
 unchanged; the loss upcasts logits to fp32.
 """

@@ -6,8 +6,8 @@ ring collective-matmuls must show the chunked schedule — n-1 collective
 permutes INTERLEAVED with the per-chunk matmuls (a dot between consecutive
 permutes), never a monolithic all-gather followed by one dot. That
 interleaving is exactly the structure XLA's latency-hiding scheduler needs
-to run each permute asynchronously (collective-permute-start/done pairs on
-TPU) while the current chunk's matmul executes. The remaining
+to run each permute asynchronously (collective-permute-start/done pairs)
+while the current chunk's matmul executes. The remaining
 hardware-level verification (profiler timeline showing the permute hidden
 under the dot) needs >1 real chip — see docs/OVERLAP.md.
 """
@@ -56,7 +56,7 @@ def _assert_interleaved(ops, n):
     compute (dot, or the dependent accumulate add for reduce-scatter)
     between consecutive permutes — never one monolithic collective followed
     by a single dot. (The CPU scheduler may hoist the permute-independent
-    dots ahead of the ring; that independence is exactly what lets the TPU
+    dots ahead of the ring; that independence is exactly what lets the GPU
     latency-hiding scheduler run them UNDER the in-flight permutes.)"""
     permutes = [i for i, k in enumerate(ops) if k == "permute"]
     compute = [i for i, k in enumerate(ops) if k in ("dot", "add")]

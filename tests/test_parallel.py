@@ -1,5 +1,5 @@
 """Sharding/collective tests on the 8-device virtual CPU mesh (SURVEY.md §4:
-the TPU-native "fake backend" — same mesh code as a real pod slice)."""
+the "fake backend" — same mesh code as on real cards)."""
 
 import jax
 import jax.numpy as jnp
