@@ -326,7 +326,7 @@ def _check_image_logits(got, ref):
     summation order (~1e-6), but a 4-bit activation within float32 rounding
     of a code boundary takes the neighbouring code: one 1/15 step at one
     conv input, which moved an image's logits by at most 3.9% of their range
-    on an H100 (my chip run). So every image within 10%, and at least half
+    when measured on one H100. So every image within 10%, and at least half
     of them (those with no such boundary case) within 1e-3."""
     rel = _rel_errors(got, ref)
     if (np.shape(got) != np.shape(ref) or not np.all(np.isfinite(got))
@@ -620,7 +620,7 @@ def phase_decode(cfg, *, prompt_lens=(17, 40, 64, 90, 130, 200, 300, 511),
     # by summation order, ~1e-6 relative. But a sign input within float32
     # rounding of zero can take the other ±1 code, and since each position
     # reads every earlier one, that request parts ways from there on: on
-    # the card one request of eight did (PERF.md, PR 1). So the median
+    # one H100 one request of eight did (see PERF.md). So the median
     # position within 1e-3 (a wrong kernel, cache write or cursor moves
     # every position), and at least 75% of the engine's greedy tokens equal
     # to the reference's.
