@@ -16,8 +16,8 @@ hand-written kernels remain, both for the decode step:
 * ``decode_attention`` — split-cache attention over the int8 KV cache.
 
 PERF.md records each kernel's time on the card beside its plain rival.
-``interpret=True`` on those two wrappers runs the kernel in the Pallas
-interpreter (CPU tests).
+The CPU tests run the kernels themselves (``_binary_gemm_triton``,
+``_decode_attention_triton``) in the Pallas interpreter.
 """
 
 from pytorch_quantize_impls_tpu.kernels.xnor_gemm import (  # noqa: F401

@@ -150,7 +150,7 @@ def decode_attention_plain(q, k_codes, k_scale, v_codes, v_scale, mask_bias):
                       precision=hi)
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
+@jax.jit
 def decode_attention(
     q: jax.Array,
     k_codes: jax.Array,
@@ -158,8 +158,6 @@ def decode_attention(
     v_codes: jax.Array,
     v_scale: jax.Array,
     mask_bias: jax.Array,
-    *,
-    interpret: bool = False,
 ) -> jax.Array:
     """One-token attention over the quantized cache.
 
@@ -170,8 +168,6 @@ def decode_attention(
       k_scale/v_scale: (b, h, cl) f32 per-(position, head) dequant scales.
       mask_bias: (b, cl) f32 additive bias, 0 where the position is
         attendable and -1e30 where not.
-      interpret: run the Triton kernel in the Pallas interpreter whatever
-        the platform (tests).
     Returns:
       (b, h, hd) f32 attention context.
     """
@@ -179,9 +175,9 @@ def decode_attention(
     cl = k_codes.shape[2]
     assert k_codes.shape == (b, h, cl, hd), (k_codes.shape, (b, h, cl, hd))
     assert mask_bias.shape == (b, cl), mask_bias.shape
-    if interpret or use_kernel(cl, hd):
+    if use_kernel(cl, hd):
         return _decode_attention_triton(
             q, k_codes, k_scale, v_codes, v_scale, mask_bias,
-            splits=n_splits(b, h, cl), interpret=interpret,
+            splits=n_splits(b, h, cl),
         )
     return decode_attention_plain(q, k_codes, k_scale, v_codes, v_scale, mask_bias)

@@ -10,7 +10,7 @@ import os
 import tempfile
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import jax
 
@@ -66,17 +66,26 @@ class StepTimer:
         return items_per_step / self.mean_s if self._times else float("nan")
 
 
-def device_busy_ns(logdir: str) -> int:
-    """Summed durations of the device events in a profiler trace: the time
-    the accelerator's streams were executing kernels or copies. 0 when the
+def device_kernels(logdir: str) -> Dict[str, Tuple[int, float]]:
+    """Per kernel (or copy) name in a profiler trace's device planes: the
+    number of launches and their summed duration in ns. Empty when the
     trace has no device plane (a CPU run)."""
-    total = 0
+    out: Dict[str, Tuple[int, float]] = {}
     for path in glob.glob(os.path.join(logdir, "**", "*.xplane.pb"), recursive=True):
         for plane in jax.profiler.ProfileData.from_file(path).planes:
             if plane.name.startswith("/device:"):
                 for line in plane.lines:
-                    total += sum(ev.duration_ns for ev in line.events)
-    return total
+                    for ev in line.events:
+                        n, ns = out.get(ev.name, (0, 0))
+                        out[ev.name] = (n + 1, ns + ev.duration_ns)
+    return out
+
+
+def device_busy_ns(logdir: str) -> float:
+    """Summed durations of the device events in a profiler trace: the time
+    the accelerator's streams were executing kernels or copies. 0 when the
+    trace has no device plane (a CPU run)."""
+    return sum(ns for _, ns in device_kernels(logdir).values())
 
 
 def device_time(fn, arg_sets, *, repeats: int = 3) -> float:

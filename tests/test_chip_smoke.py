@@ -63,7 +63,8 @@ def test_plain_resnet_matches_flax_model():
     _same_tree_shapes(variables, model.init(jax.random.PRNGKey(0), x[:1], train=False))
     with jax.default_matmul_precision("highest"):
         want = model.apply(variables, x, train=False)
-        got = cs.plain_resnet_logits(variables, x, cfg)
+        got, margin = cs.plain_resnet_logits(variables, x, cfg)
+    assert margin.shape == (3,) and np.all((margin >= 0) & (margin <= 0.5))
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-4, atol=1e-4)
 
 
@@ -83,10 +84,87 @@ def test_phase_kernels_tiny(capsys):
 
 def test_phase_decode_tiny(capsys):
     res = cs.phase_decode(cs.lm_config(**TINY_LM), prompt_lens=(3, 9, 17, 30),
-                          max_new=5, n_slots=2, n_logit_steps=2)
-    # every prompt position plus two decode steps per request; 5 tokens each
-    assert len(res["rel"]) == (3 + 9 + 17 + 30) + 4 * 2 and res["agree"].size == 4 * 5
+                          max_new=5, n_slots=2)
+    # 4 requests through 2 slots; every prompt position (prefill) and the 4
+    # batch steps per request, all from the engine's own programs
+    assert [len(r) for r in res["rel"]] == [3 + 4, 9 + 4, 17 + 4, 30 + 4]
+    assert sum(a.size for a in res["agree"]) == 4 * 5
+    assert res["parted"] == [] and res["flips"] == []
     assert "requests=4 tokens=20" in capsys.readouterr().out
+
+
+def test_phase_decode_rejects_a_broken_slot(monkeypatch):
+    """Attention that reads nothing for one slot is caught: the engine's
+    context signs for that slot overrule the reference far from zero."""
+    from pytorch_quantize_impls_tpu.infer import fused_decode as fd
+
+    attend = fd.decode_attention
+
+    def broken(q, *args):
+        out = attend(q, *args)
+        return out.at[1].set(0.0) if q.shape[0] > 1 else out
+
+    monkeypatch.setattr(fd, "decode_attention", broken)
+    with pytest.raises(AssertionError, match="overruled far from zero"):
+        cs.phase_decode(cs.lm_config(**TINY_LM), prompt_lens=(3, 9), max_new=5,
+                        n_slots=2)
+
+
+def test_served_rows_checks_the_slot_cursor():
+    """A batch step whose slot cursor is not the request's next position
+    (a broken slot) is refused."""
+    fut = object()
+    sites = [("sign", np.ones((1, 16, 4), bool))] * 3
+    prefill = np.zeros((1, 16, 8), np.float32)
+    step_sites = [("sign", np.ones((2, 1, 4), bool))] * 3
+    step = np.zeros((2, 1, 8), np.float32)
+    events = [("admit", 1, fut), *sites, ("logits", prefill, np.array([0])),
+              *step_sites, ("logits", step, np.array([0, 3]))]  # prompt of 3
+    rows, codes = cs.served_rows(events, [fut], [np.arange(3)], max_new=2)
+    assert rows[0].shape == (4, 8) and codes[0].shape == (4, 3, 4)
+    events[-1] = ("logits", step, np.array([0, 4]))
+    with pytest.raises(AssertionError, match="cache cursor 4"):
+        cs.served_rows(events, [fut], [np.arange(3)], max_new=2)
+
+
+def test_reference_with_forced_sign_codes():
+    """The reference run with the fused program's own sign decisions gives
+    the fused program's logits and overrules nothing; one decision set the
+    other way is reported at its position and site, with its margin."""
+    from pytorch_quantize_impls_tpu import infer
+
+    cfg = cs.lm_config(**TINY_LM)
+    params = cs.make_lm_params(cfg, 0)
+    fm = infer.export_fused_decode(cfg, {"params": params})
+    toks = jnp.asarray(np.random.default_rng(3).integers(0, 64, (1, 20)), jnp.int32)
+    events = []
+    with cs.engine_logits(events):
+        got, _ = infer.fused_decode.fused_decode_apply(fm, None, toks)
+    codes = np.stack([e[1] for e in events if e[0] == "sign"], -2)  # (1, 20, 6, 32)
+    assert codes.shape == (1, 20, 3 * cfg.n_layers, cfg.d_model)
+    logits, overruled, margin = cs.plain_lm_logits(params, toks, cfg,
+                                                   codes=jnp.asarray(codes))
+    np.testing.assert_allclose(np.asarray(logits), np.asarray(got), rtol=1e-5, atol=1e-4)
+    assert int(np.sum(overruled)) == 0
+    # the last layer's ln2 sign of feature 7 at position 11: it feeds no
+    # later site and no K/V, so only that position's logits move
+    codes[0, 11, 5, 7] ^= True
+    logits2, overruled, margin = cs.plain_lm_logits(params, toks, cfg,
+                                                    codes=jnp.asarray(codes))
+    assert np.argwhere(np.asarray(overruled)).tolist() == [[0, 11, 5]]
+    assert 0 < float(margin[0, 11, 5]) <= 1
+    moved = np.any(np.asarray(logits2) != np.asarray(logits), -1)[0]
+    assert np.nonzero(moved)[0].tolist() == [11]
+
+
+def test_image_check_spares_only_marked_images():
+    ref = np.ones((3, 10))
+    got = ref.copy()
+    got[1] *= 1.02  # one code step moved image 1
+    rel, marked = cs._check_image_logits(got, ref, np.array([0.3, 1e-6, 0.2]))
+    assert marked.tolist() == [False, True, False] and rel[1] > cs.IMAGE_TOL
+    with pytest.raises(AssertionError, match="unmarked max"):
+        cs._check_image_logits(got, ref, np.array([0.3, 0.3, 0.2]))
 
 
 def test_phase_images_tiny(capsys):

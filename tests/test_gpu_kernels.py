@@ -36,6 +36,12 @@ def _binary_case(m, k, n):
     return x, w, alpha, row
 
 
+def _kernel_gemm(x, w, alpha=None, row=None):
+    """The Triton kernel in the interpreter, with the wrapper's epilogue."""
+    acc = bg._binary_gemm_triton(x, w, interpret=True)
+    return common.scale_epilogue(acc, alpha, row)
+
+
 def _attention_case(b, h, cl, hd, lens):
     q = jnp.asarray(RNG.normal(size=(b, h, hd)), jnp.float32)
     kc = jnp.asarray(RNG.integers(-127, 128, (b, h, cl, hd)), jnp.int8)
@@ -56,7 +62,7 @@ def test_binary_decode_gemm_interpret(m, k, n):
     row scale (integer sums, identical epilogue order)."""
     x, w, alpha, row = _binary_case(m, k, n)
     for a, r in ((None, None), (alpha, row)):
-        got = bg.binary_gemm(x, w, a, r, interpret=True)
+        got = _kernel_gemm(x, w, a, r)
         ref = bg.binary_gemm_reference(x, w, a, r)
         np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
@@ -67,7 +73,7 @@ def test_binary_decode_gemm_pads_k_m_n():
     m, k, n = 3, 1000, 70
     x, w, alpha, _ = _binary_case(m, k, n)
     assert w.shape == (32, n)  # K packed up to one 1024-row group
-    got = bg.binary_gemm(x, w, alpha, interpret=True)
+    got = _kernel_gemm(x, w, alpha)
     assert got.shape == (m, n)
     ref = bg.binary_gemm_reference(x, w, alpha)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
@@ -80,7 +86,7 @@ def test_binary_decode_gemm_k_split():
     assert bg._n_splits(4, 200) == 1  # strips alone fill the card
     assert bg._n_splits(3, 100) == 1  # only divisors of the group count
     x, w, _, row = _binary_case(8, 4096, 64)
-    got = bg.binary_gemm(x, w, None, row, interpret=True)
+    got = _kernel_gemm(x, w, None, row)
     ref = bg.binary_gemm_reference(x, w, None, row)
     np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
 
@@ -135,13 +141,15 @@ def test_dispatch_rejects_other_platforms(monkeypatch):
         bg.use_kernel(8)
 
 
-def test_cpu_runs_the_plain_form():
-    """On the CPU, binary_gemm lowers no Pallas call at all."""
+def test_cpu_runs_the_plain_form(monkeypatch):
+    """On the CPU, binary_gemm traces no Pallas call at all; on the GPU the
+    same wrapper traces the kernel (a new shape, so a fresh trace)."""
     x, w, alpha, _ = _binary_case(4, 1024, 64)
     jaxpr = str(jax.make_jaxpr(lambda a, b: bg.binary_gemm(a, b, alpha))(x, w))
     assert "pallas_call" not in jaxpr
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
     jaxpr_k = str(jax.make_jaxpr(
-        lambda a, b: bg.binary_gemm(a, b, alpha, interpret=True))(x, w))
+        lambda a, b: bg.binary_gemm(a, b, alpha))(x[:3], w))
     assert "pallas_call" in jaxpr_k
 
 
